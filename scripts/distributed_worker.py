@@ -39,13 +39,13 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from commonroad_rp_tpu.ops import grid as grid_ops
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-    from commonroad_rp_tpu.utils.config import VehicleConfiguration
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.ops import grid as grid_ops
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.utils.config import VehicleConfiguration
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.route import RoutePlanner
 
     n_devices = len(jax.devices())
     assert n_devices >= args.num_processes, \

@@ -35,11 +35,14 @@ _FAST_MODULES = {
     "test_geometry.py",
     "test_kinematics_conformance.py",
     "test_collision.py",
-    "test_onehot_interval.py",
     "test_scenario_io.py",
     "test_native.py",
     "test_precision_and_golden.py",
     "test_fleet_comm_volume.py",
+    "test_scorer.py",
+    "test_backend.py",
+    "test_config.py",
+    "test_triton_scorer.py",
 }
 _FAST_TESTS = {
     ("test_planner_e2e.py", "test_over_reaches_goal"),      # one e2e drive

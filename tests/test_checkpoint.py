@@ -4,10 +4,10 @@ import logging
 
 import numpy as np
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils import checkpoint
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils import checkpoint
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 
@@ -65,7 +65,7 @@ def test_planner_checkpoint_resume(repo_root, tmp_path):
 def test_fleet_carry_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.parallel.fleet import FleetCarry
+    from commonroad_rp_jax.parallel.fleet import FleetCarry
 
     carry = FleetCarry(
         x0_lon=jnp.asarray(np.random.rand(4, 3), jnp.float32),

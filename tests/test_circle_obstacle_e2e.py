@@ -4,7 +4,7 @@ pycrcc collides exact circles (reference reactive_planner.py:236-239).
 This drives a synthetic scenario where a parked disc blocks the lane: the
 facade must compile the circle into a disc row, swerve around it with a
 small clearance, reach the goal, and validate collision-free — on both the
-XLA f64 conformance path and the Pallas fast path (whose kernel runs the
+XLA f64 conformance path and the fused-scorer fast path (which runs the
 same exact closest-point test).  The corner-region divergence against the
 round-1 bounding-square over-approximation is unit-pinned separately in
 tests/test_collision_shapes.py.
@@ -16,8 +16,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 
@@ -103,7 +103,7 @@ def test_circle_obstacle_drive(tmp_path, fast):
     assert planner.goal_reached()
 
     # the recorded run is collision-free against the EXACT disc
-    from commonroad_rp_tpu.utils.evaluation import (
+    from commonroad_rp_jax.utils.evaluation import (
         create_full_solution_trajectory, solution_collision_report)
 
     config = planner.config
@@ -146,7 +146,7 @@ def test_circle_obstacle_drive(tmp_path, fast):
 def test_plan_scan_with_shape_obstacles(tmp_path):
     """plan_scan windows the disc AND polygon groups per cycle on device:
     same recorded trajectory as the host fast loop on the shape scenario."""
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.utils.route import RoutePlanner
 
     host = _drive(tmp_path, fast=True)
     assert host.goal_reached()

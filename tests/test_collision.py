@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.ops import collision as co
+from commonroad_rp_jax.ops import collision as co
 
 
 def test_obb_overlap_basic():
@@ -102,7 +102,7 @@ def test_continuous_catches_tunneling():
 
 def test_corridor_band_check():
     """Synthetic straight road: candidates beyond the band collide."""
-    from commonroad_rp_tpu.ops import frenet
+    from commonroad_rp_jax.ops import frenet
     line = np.stack([np.linspace(0, 100, 101), np.zeros(101)], axis=1)
     tables = frenet.from_polyline(line)
     corridor = co.CorridorArrays(d_lo=jnp.full(101, -3.0),
@@ -121,7 +121,7 @@ def test_corridor_band_check():
 
 def test_corridor_compile_straight_road():
     """compile_corridor recovers the band width of a straight two-edge road."""
-    from commonroad_rp_tpu.ops import frenet
+    from commonroad_rp_jax.ops import frenet
     line = np.stack([np.linspace(0, 50, 51), np.zeros(51)], axis=1)
     tables = frenet.from_polyline(line)
     # boundary: two lines at y = +/- 4
@@ -135,3 +135,40 @@ def test_corridor_compile_straight_road():
     corridor = co.compile_corridor(boundary, tables)
     np.testing.assert_allclose(np.asarray(corridor.d_hi), 4.0, atol=1e-9)
     np.testing.assert_allclose(np.asarray(corridor.d_lo), -4.0, atol=1e-9)
+
+
+def test_quantize_bands_contract():
+    """Bands become multiples of 2**-10 in [-32, 32], only ever shrinking
+    the drivable band (floor on d_hi, ceil on d_lo)."""
+    rng = np.random.default_rng(4)
+    d_lo = np.concatenate([rng.uniform(-40.0, -0.5, 100), [-1e4, -1e9]])
+    d_hi = np.concatenate([rng.uniform(0.5, 40.0, 100), [1e4, 1e9]])
+    lo_q, hi_q = co.quantize_bands(d_lo, d_hi)
+    assert np.all(np.abs(lo_q) <= co.BAND_CLAMP)
+    assert np.all(np.abs(hi_q) <= co.BAND_CLAMP)
+    np.testing.assert_array_equal(lo_q * 1024.0, np.round(lo_q * 1024.0))
+    np.testing.assert_array_equal(hi_q * 1024.0, np.round(hi_q * 1024.0))
+    assert np.all(hi_q <= np.clip(d_hi, -co.BAND_CLAMP, co.BAND_CLAMP))
+    assert np.all(lo_q >= np.clip(d_lo, -co.BAND_CLAMP, co.BAND_CLAMP))
+
+
+def test_corridor_probes_clamp_to_true_path_end():
+    """With sentinel rows past the path end (fleet padding, unbounded
+    bands), probes clamped at ``s_last`` read the last real band — the
+    same verdicts as the unpadded table."""
+    ref_s = jnp.asarray([0.0, 10.0, 20.0, 30.0])
+    corr = co.CorridorArrays(d_lo=jnp.full(4, -2.0), d_hi=jnp.full(4, 2.0))
+    pad_s = jnp.concatenate([ref_s, 30.0 + 1e6 * jnp.arange(1.0, 3.0)])
+    pad = co.CorridorArrays(
+        d_lo=jnp.concatenate([corr.d_lo, jnp.full(2, -1e4)]),
+        d_hi=jnp.concatenate([corr.d_hi, jnp.full(2, 1e4)]))
+    # rear-axle stations near and past the end, lateral offsets 0 and 3 m
+    s = jnp.asarray([[28.0, 29.5], [31.0, 33.0], [28.0, 29.5], [31.0, 33.0]])
+    d = jnp.asarray([[0.0, 0.0], [0.0, 0.0], [3.0, 3.0], [3.0, 3.0]])
+    theta = jnp.zeros_like(s)
+    args = (jnp.asarray(2.0), jnp.asarray(0.8), jnp.asarray(1.4))
+    want = co.check_corridor(s, d, theta, ref_s, corr, *args)
+    got = co.check_corridor(s, d, theta, pad_s, pad, *args,
+                            s_last=jnp.asarray(30.0))
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(want), [False, False, True, True])

@@ -10,14 +10,14 @@ tests pin the exact semantics:
 * randomized sweeps against an independent dense-sampling oracle,
 * concave-polygon decomposition correctness (notch region is free space),
 * scenario-level integration through compile_obstacles,
-* Pallas fast-path parity for disc obstacles (interpret mode).
+* Fused-scorer fast-path parity for disc obstacles.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.ops import collision as co
+from commonroad_rp_jax.ops import collision as co
 
 
 def _ego(x, y, theta):
@@ -163,7 +163,7 @@ def test_polygon_randomized_vs_sampling_oracle():
     sample both shapes densely; overlap iff some box point is in the polygon
     or some polygon point is in the box (sufficient at this density given
     the margin guard)."""
-    from commonroad_rp_tpu.utils.scenario import point_in_polygon
+    from commonroad_rp_jax.utils.scenario import point_in_polygon
 
     rng = np.random.default_rng(11)
     hl, hw = 1.0, 0.5
@@ -265,7 +265,7 @@ def test_concave_notch_is_free_space():
     """L-shaped obstacle: a box inside the notch (inside AABB and convex
     hull!) must be collision-free; a box on the L itself must hit."""
     L = [[0, 0], [4, 0], [4, 1], [1, 1], [1, 4], [0, 4]]
-    from commonroad_rp_tpu.utils.geometry import decompose_polygon
+    from commonroad_rp_jax.utils.geometry import decompose_polygon
     pieces = decompose_polygon(np.asarray(L, dtype=np.float64))
     assert len(pieces) >= 2
     V = max(len(p) for p in pieces)
@@ -338,10 +338,10 @@ def test_continuous_polygon_covering_box():
 def test_compile_obstacles_disc_and_polygon_groups(tmp_path):
     """compile_obstacles routes shapes to the exact groups, including a
     DYNAMIC circle obstacle (moving disc)."""
-    from commonroad_rp_tpu.utils.scenario import (Circle, DynamicObstacle,
+    from commonroad_rp_jax.utils.scenario import (Circle, DynamicObstacle,
                                                   Polygon, Scenario,
                                                   StaticObstacle)
-    from commonroad_rp_tpu.models.state import TraceState
+    from commonroad_rp_jax.models.state import TraceState
 
     states = [TraceState(time_step=t, position=np.array([2.0 * t, 0.0]),
                          orientation=0.0) for t in range(4)]
@@ -354,7 +354,7 @@ def test_compile_obstacles_disc_and_polygon_groups(tmp_path):
                          initial_state=TraceState(
                              time_step=0, position=np.array([0.0, 0.0]),
                              orientation=0.0))
-    from commonroad_rp_tpu.utils.scenario import LaneletNetwork
+    from commonroad_rp_jax.utils.scenario import LaneletNetwork
     scenario = Scenario(scenario_id="SYN_Shapes-1", dt=0.1,
                         lanelet_network=LaneletNetwork([]),
                         static_obstacles=[tri], dynamic_obstacles=[disc])
@@ -372,14 +372,14 @@ def test_compile_obstacles_disc_and_polygon_groups(tmp_path):
 
 
 def test_fast_path_disc_parity_interpret():
-    """Pallas scorer (interpret mode) must mask disc collisions exactly like
+    """The fused scorer must mask disc collisions exactly like
     the XLA path: candidates threading past the disc's corner gap survive."""
     import jax
 
-    from commonroad_rp_tpu.ops import cycle as cycle_ops
-    from commonroad_rp_tpu.ops import frenet as frenet_ops
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.ops.polynomial import (quartic_coeffs,
+    from commonroad_rp_jax.ops import cycle as cycle_ops
+    from commonroad_rp_jax.ops import frenet as frenet_ops
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.ops.polynomial import (quartic_coeffs,
                                                   quintic_coeffs)
 
     with jax.enable_x64(False):
@@ -438,7 +438,7 @@ def test_fast_path_disc_parity_interpret():
             jnp.ones(K, dtype=bool), ref, veh, obstacles, corridor,
             dtype(0.0), cost_params, dt=dt, n_steps=n_steps,
             low_vel_mode=False, cost_structure=("default", True, False),
-            constraint_flags=(True,) * 5, interpret=True)
+            constraint_flags=(True,) * 5)
 
         xla_collides = np.asarray(xla.masks)[1].astype(bool)
         xla_feasible = np.asarray(xla.masks)[0].astype(bool)
@@ -451,14 +451,14 @@ def test_fast_path_disc_parity_interpret():
 
 
 def test_fast_path_polygon_parity_interpret():
-    """Pallas scorer (interpret mode) with a POLYGON obstacle group: masks
-    match the XLA path exactly (same convex-piece SAT fused in VMEM)."""
+    """The fused scorer with a POLYGON obstacle group: masks match the XLA
+    conformance path exactly (the same convex-piece SAT)."""
     import jax
 
-    from commonroad_rp_tpu.ops import cycle as cycle_ops
-    from commonroad_rp_tpu.ops import frenet as frenet_ops
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.ops.polynomial import (quartic_coeffs,
+    from commonroad_rp_jax.ops import cycle as cycle_ops
+    from commonroad_rp_jax.ops import frenet as frenet_ops
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.ops.polynomial import (quartic_coeffs,
                                                   quintic_coeffs)
 
     with jax.enable_x64(False):
@@ -520,7 +520,7 @@ def test_fast_path_polygon_parity_interpret():
         fast = cycle_ops.evaluate_level_fast(
             jnp.asarray(c_lon, dtype), jnp.asarray(c_lat, dtype), traj_len,
             jnp.ones(K, dtype=bool), ref, veh, obstacles, corridor,
-            dtype(0.0), cost_params, interpret=True, **kwargs)
+            dtype(0.0), cost_params, **kwargs)
 
         xla_collides = np.asarray(xla.masks)[1].astype(bool)
         xla_feasible = np.asarray(xla.masks)[0].astype(bool)

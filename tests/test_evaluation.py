@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from commonroad_rp_tpu.models.state import InputState, TraceState
-from commonroad_rp_tpu.utils import evaluation as ev
+from commonroad_rp_jax.models.state import InputState, TraceState
+from commonroad_rp_jax.utils import evaluation as ev
 
 
 def test_ks_straight_line():
@@ -73,10 +73,10 @@ def test_solution_xml_roundtrip(tmp_path):
     """Solution -> XML file -> Solution preserves trajectory states."""
     import numpy as np
 
-    from commonroad_rp_tpu.models.state import ReactivePlannerState
-    from commonroad_rp_tpu.models.trajectories import Trajectory
-    from commonroad_rp_tpu.utils import solution_writer as sw
-    from commonroad_rp_tpu.utils.evaluation import (PlanningProblemSolution,
+    from commonroad_rp_jax.models.state import ReactivePlannerState
+    from commonroad_rp_jax.models.trajectories import Trajectory
+    from commonroad_rp_jax.utils import solution_writer as sw
+    from commonroad_rp_jax.utils.evaluation import (PlanningProblemSolution,
                                                     Solution)
 
     states = [ReactivePlannerState(

@@ -1,8 +1,8 @@
-"""Facade fast-scoring path (config.debug.fast_scoring): the fused Pallas
+"""Facade fast-scoring path (config.debug.fast_scoring): the fused
 scorer behind the ReactivePlanner API.
 
-Runs the full ZAM_Over replanning loop with fast scoring (interpret mode on
-CPU) and checks it against the XLA conformance path: goal reached, matching
+Runs the full ZAM_Over replanning loop with fast scoring on the CPU and
+checks it against the XLA conformance path: goal reached, matching
 selected trajectories, and exact rejection counters.  The per-constraint
 reason dict is documented as lost on this path (the reference's
 multiprocessing mode loses it the same way, reactive_planner.py:962-967).
@@ -13,9 +13,9 @@ import logging
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 
@@ -149,7 +149,7 @@ def test_fast_scoring_no_feasible_candidates_returns_none(repo_root):
     at v~0, else None + warning)."""
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.ops.collision import CorridorArrays
+    from commonroad_rp_jax.ops.collision import CorridorArrays
 
     config = _make_config(repo_root, fast=True)
     route = RoutePlanner(config.scenario,
@@ -175,11 +175,11 @@ def test_fused_levels_escalation_unit():
     import jax
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.ops import collision as co
-    from commonroad_rp_tpu.ops import cycle as cycle_ops
-    from commonroad_rp_tpu.ops import frenet as frenet_ops
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.ops.polynomial import quartic_coeffs, quintic_coeffs
+    from commonroad_rp_jax.ops import collision as co
+    from commonroad_rp_jax.ops import cycle as cycle_ops
+    from commonroad_rp_jax.ops import frenet as frenet_ops
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.ops.polynomial import quartic_coeffs, quintic_coeffs
 
     with jax.enable_x64(False):
         dtype = jnp.float32
@@ -233,7 +233,7 @@ def test_fused_levels_escalation_unit():
             desired_s=dtype(0.0))
         kwargs = dict(dt=dt, n_steps=n_steps, low_vel_mode=False,
                       cost_structure=("default", True, False),
-                      constraint_flags=(True,) * 5, interpret=True)
+                      constraint_flags=(True,) * 5)
 
         fused = cycle_ops.evaluate_levels_fast(
             jnp.asarray(c_lon, dtype), jnp.asarray(c_lat, dtype), traj_len,
@@ -430,7 +430,7 @@ def test_plan_scan_dynamic_obstacles_deu(repo_root):
 
 
 # ---------------------------------------------------------------------------
-# round-5 fused-path scope closures (VERDICT r4 item 5)
+# fused-path scope closures
 # ---------------------------------------------------------------------------
 
 def _plan_with_cost(repo_root, fast, cost_function):
@@ -448,10 +448,10 @@ def _plan_with_cost(repo_root, fast, cost_function):
 
 def test_fail_safe_cost_on_fast_path(repo_root):
     """DefaultCostFunctionFailSafe (cost_function.py:74-92) runs through the
-    fused Pallas kernel (a weight/flag switch: w_a=1, desired_d=0, no
+    fused scorer (a weight/flag switch: w_a=1, desired_d=0, no
     velocity/stopping terms) and selects the same trajectory as the XLA
     conformance path."""
-    from commonroad_rp_tpu.models.cost_functions import \
+    from commonroad_rp_jax.models.cost_functions import \
         DefaultCostFunctionFailSafe
 
     ref_planner, want = _plan_with_cost(repo_root, False,

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.models.sampling import FixedIntervalSampling
-from commonroad_rp_tpu.ops import grid as grid_ops
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.models.sampling import FixedIntervalSampling
+from commonroad_rp_jax.ops import grid as grid_ops
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
 
 
 def test_device_grid_matches_host_grid():
@@ -82,7 +82,7 @@ def test_entry_compiles(repo_root):
 def test_traj_length_matches_numpy_arange():
     """traj_length_steps must equal len(np.arange(0, round(dtau+dt,5), dt))
     (the reference's per-candidate time array, reactive_planner.py:733)."""
-    from commonroad_rp_tpu.models.sampling import traj_length_steps
+    from commonroad_rp_jax.models.sampling import traj_length_steps
     dt = 0.1
     taus = np.concatenate([np.arange(0.2, 6.01, 0.1),
                            [0.4000000001, 1.9999999999, 2.0000000001]])
@@ -97,13 +97,13 @@ def test_mixed_scenario_fleet(repo_root):
     import jax
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.ops import grid as grid_ops
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-    from commonroad_rp_tpu.utils.config import VehicleConfiguration
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.ops import grid as grid_ops
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.utils.config import VehicleConfiguration
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.route import RoutePlanner
 
     n_steps, dt = 20, 0.1
     problems = []
@@ -149,12 +149,12 @@ def test_heterogeneous_vehicle_fleet(repo_root):
     import jax
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.ops import grid as grid_ops
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-    from commonroad_rp_tpu.utils.config import VehicleConfiguration
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.ops import grid as grid_ops
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.utils.config import VehicleConfiguration
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.route import RoutePlanner
 
     n_steps, dt = 20, 0.1
     scenario, pp, _ = load_scenario_and_planning_problem(
@@ -185,9 +185,9 @@ def test_heterogeneous_vehicle_fleet(repo_root):
 
 
 def _over_problem(repo_root, n_steps=10):
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.route import RoutePlanner
 
     scenario, pp, _ = load_scenario_and_planning_problem(
         str(repo_root / "example_scenarios" / "ZAM_Over-1_1.xml"))
@@ -198,9 +198,9 @@ def _over_problem(repo_root, n_steps=10):
 
 
 def _fleet_runner(mesh, n_steps=10, n_cycles=3):
-    from commonroad_rp_tpu.ops import kinematics as kin_ops
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.utils.config import VehicleConfiguration
+    from commonroad_rp_jax.ops import kinematics as kin_ops
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.utils.config import VehicleConfiguration
 
     veh_cfg = VehicleConfiguration()
     veh = kin_ops.VehicleArrays(
@@ -221,8 +221,8 @@ def test_fleet_uneven_shards(repo_root):
     """F=5 problems on a 4-device mesh: pad_fleet pads with dead members;
     real-member results match the unpadded 1-device run and aggregates
     count only live problems."""
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
 
     problem = _over_problem(repo_root)
     F = 5
@@ -257,9 +257,9 @@ def test_fleet_uneven_shards(repo_root):
 def test_fleet_mid_scan_checkpoint_resume(repo_root, tmp_path):
     """6-cycle scan == 3 cycles + checkpoint roundtrip + 3 more cycles
     (bitwise carries; stacked metrics match)."""
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-    from commonroad_rp_tpu.utils.checkpoint import (load_fleet_carry,
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.utils.checkpoint import (load_fleet_carry,
                                                     save_fleet_carry)
 
     problem = _over_problem(repo_root)
@@ -292,15 +292,15 @@ def test_fleet_mid_scan_checkpoint_resume(repo_root, tmp_path):
 
 def test_fleet_disc_obstacles_xla_vs_pallas(repo_root, tmp_path):
     """Fleet scenes with CIRCLE obstacles: the radius column flows through
-    build_fleet_scene into both fleet scans; the XLA scan and the Pallas
+    build_fleet_scene into both fleet scans; the dense scan and the fused-scorer
     scan agree on per-cycle success and carries for a disc-blocked lane."""
     import textwrap
 
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel import pallas_fleet
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel import pallas_fleet
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.route import RoutePlanner
     from tests.test_circle_obstacle_e2e import _SCENARIO
 
     path = tmp_path / "SYN_Disc-1_1.xml"
@@ -313,7 +313,7 @@ def test_fleet_disc_obstacles_xla_vs_pallas(repo_root, tmp_path):
         dtype=jnp.float32)
     # polygon group is facade-only on the fleet path: strip it (the XML has
     # a triangle too) and keep the disc + boundary corridor
-    from commonroad_rp_tpu.ops.collision import ObstacleArrays
+    from commonroad_rp_jax.ops.collision import ObstacleArrays
     obs = problem["obstacles"]
     # shift the disc toward the right edge so the single-level grid (no
     # escalation in the fleet scan) can dodge it at d = 1.5; the scenario's
@@ -338,8 +338,7 @@ def test_fleet_disc_obstacles_xla_vs_pallas(repo_root, tmp_path):
     grid = grid_ops.make_static_grid(1, 0.4, n_steps * 0.1, 0.1, -3.0, 3.0, 4)
     run_p = pallas_fleet.make_pallas_fleet_scan(
         scene, grid, 0.1, n_steps, replan_offset=3, low_vel_threshold=4.0,
-        horizon=n_steps * 0.1, n_cycles=10,
-        interpret=jax.default_backend() != "tpu")
+        horizon=n_steps * 0.1, n_cycles=10)
     final_p, metrics_p = run_p(carry)
 
     assert bool(np.asarray(metrics_x.found).all())
@@ -359,8 +358,8 @@ def test_xla_fleet_standstill_fallback(repo_root):
     branch as the pallas fleet scan (reactive_planner.py:638-653)."""
     import jax.numpy as jnp
 
-    from commonroad_rp_tpu.parallel import fleet as fleet_ops
-    from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
+    from commonroad_rp_jax.parallel import fleet as fleet_ops
+    from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
     from tests.test_pallas_fleet import _over_problem
 
     n_steps, dt = 20, 0.1

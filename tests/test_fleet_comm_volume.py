@@ -3,7 +3,7 @@
 The weak-scaling argument (doc/scaling.md) rests on the claim that the
 sharded replanning scan's ONLY cross-device traffic is a fixed handful of
 scalar psums per cycle (success count, cost sum, finite count) — bytes over
-ICI regardless of fleet size or candidate count.  This test inspects the
+the interconnect regardless of fleet size or candidate count.  This test inspects the
 lowered StableHLO of the shard_map'd scan and asserts exactly that: three
 ``all_reduce`` ops, all reducing rank-0 scalars, and no other collective of
 any kind (no all_gather / all_to_all / collective_permute / reduce_scatter
@@ -19,11 +19,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.ops import grid as grid_ops
-from commonroad_rp_tpu.ops import kinematics as kin_ops
-from commonroad_rp_tpu.parallel import fleet as fleet_ops
-from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-from commonroad_rp_tpu.utils.config import VehicleConfiguration
+from commonroad_rp_jax.ops import grid as grid_ops
+from commonroad_rp_jax.ops import kinematics as kin_ops
+from commonroad_rp_jax.parallel import fleet as fleet_ops
+from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+from commonroad_rp_jax.utils.config import VehicleConfiguration
 
 _FORBIDDEN = ("all_gather", "all_to_all", "collective_permute",
               "reduce_scatter", "collective_broadcast")
@@ -55,7 +55,7 @@ def lowered_text(repo_root):
 def test_only_scalar_all_reduces(lowered_text):
     """Per cycle the scan communicates exactly three scalar all_reduces
     (n_success, cost_sum, n_finite psums, parallel/fleet.py:189-193) —
-    <= 24 bytes over ICI per cycle, independent of F and K."""
+    <= 24 bytes between devices per cycle, independent of F and K."""
     occurrences = [m.start() for m in
                    re.finditer(r"stablehlo\.all_reduce", lowered_text)]
     assert len(occurrences) == 3, \
@@ -80,12 +80,12 @@ def test_no_bulk_collectives(lowered_text):
 
 
 def test_pallas_fleet_scan_comm_volume(repo_root):
-    """Same pin for the production pallas fleet scan under a mesh: three
+    """Same pin for the production fused-scorer fleet scan under a mesh: three
     scalar psums per cycle (parallel/pallas_fleet.py:268-271), nothing
     bulk."""
     import importlib.util
 
-    from commonroad_rp_tpu.parallel import pallas_fleet
+    from commonroad_rp_jax.parallel import pallas_fleet
 
     spec = importlib.util.spec_from_file_location(
         "__graft_entry__", repo_root / "__graft_entry__.py")
@@ -98,7 +98,7 @@ def test_pallas_fleet_scan_comm_volume(repo_root):
     grid = grid_ops.make_static_grid(1, 0.4, 2.0, dt, -3.0, 3.0, 4)
     run = pallas_fleet.make_pallas_fleet_scan(
         scene, grid, dt, n_steps, replan_offset=3, low_vel_threshold=4.0,
-        horizon=2.0, n_cycles=2, interpret=True, mesh=make_fleet_mesh(8))
+        horizon=2.0, n_cycles=2, mesh=make_fleet_mesh(8))
     with jax.enable_x64(False):
         text = jax.jit(lambda c: run(c)).lower(carry).as_text()
     n_reduce = len(re.findall(r"stablehlo\.all_reduce", text))

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from commonroad_rp_tpu.utils import geometry
+from commonroad_rp_jax.utils import geometry
 
 
 def _circle_polyline(radius=50.0, n=200, span=np.pi / 2):

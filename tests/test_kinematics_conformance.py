@@ -11,12 +11,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.baseline import oracle
-from commonroad_rp_tpu.models.sampling import FixedIntervalSampling
-from commonroad_rp_tpu.ops import cost as cost_ops
-from commonroad_rp_tpu.ops import frenet
-from commonroad_rp_tpu.ops import kinematics
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.baseline import oracle
+from commonroad_rp_jax.models.sampling import FixedIntervalSampling
+from commonroad_rp_jax.ops import cost as cost_ops
+from commonroad_rp_jax.ops import frenet
+from commonroad_rp_jax.ops import kinematics
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
 
 CONSTRAINTS = ["velocity", "acceleration", "kappa", "kappa_dot", "yaw_rate"]
 REASON_BY_CODE = {**kinematics.REASON_NAMES, kinematics.REASON_DOMAIN: "domain"}

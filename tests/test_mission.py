@@ -1,4 +1,4 @@
-"""Stop-at-goal mission e2e (VERDICT r3 item 9): velocity-keeping to the
+"""Stop-at-goal mission e2e: velocity-keeping to the
 goal region, braking, then stopping mode to standstill — the reference's
 two longitudinal modes (reactive_planner.py:309-347 + :349-376) composed
 into one run, with EVERY planning cycle through the device-resident
@@ -12,9 +12,9 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
 from run_planner import drive_mission
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu import native
+from commonroad_rp_jax import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library failed to build")
@@ -15,7 +15,7 @@ def _arc(radius=40.0, n=120):
 
 
 def test_tables_match_python():
-    from commonroad_rp_tpu.ops import frenet
+    from commonroad_rp_jax.ops import frenet
     poly = _arc()
     s, theta, tangent, normal = native.clcs_build_tables(poly)
     tables = frenet.from_polyline(poly)
@@ -36,7 +36,7 @@ def test_projection_roundtrip():
 
 
 def test_projection_matches_coordinate_system():
-    from commonroad_rp_tpu.utils.coordinate_system import CoordinateSystem
+    from commonroad_rp_jax.utils.coordinate_system import CoordinateSystem
     poly = _arc()
     co = CoordinateSystem(poly, smooth_reference=False)
     # build the native tables from the SAME polyline the CoordinateSystem
@@ -57,8 +57,8 @@ def test_points_in_polygon():
 
 def test_corridor_sweep_matches_python():
     import jax.numpy as jnp
-    from commonroad_rp_tpu.ops import collision as co
-    from commonroad_rp_tpu.ops import frenet
+    from commonroad_rp_jax.ops import collision as co
+    from commonroad_rp_jax.ops import frenet
 
     line = np.stack([np.linspace(0, 50, 51), np.zeros(51)], axis=1)
     tables = frenet.from_polyline(line)
@@ -80,7 +80,7 @@ def test_corridor_sweep_matches_python():
 
 def test_obb_sum_matches_device_merge():
     import jax.numpy as jnp
-    from commonroad_rp_tpu.ops import collision as co
+    from commonroad_rp_jax.ops import collision as co
 
     centers = np.array([[0.0, 0.0], [2.0, 0.5], [4.0, 1.5]])
     thetas = np.array([0.0, 0.3, 0.6])

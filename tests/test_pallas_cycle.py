@@ -1,8 +1,8 @@
-"""Fused Pallas scoring kernel vs. the XLA evaluation pipeline.
+"""The fused scorer (ops.cycle.score_candidates) vs. the XLA stage chain.
 
-The kernel must reproduce the XLA path's masked candidate costs (rollout +
-cost + corridor + obstacle collision, +inf where infeasible/colliding) —
-interpret mode on the CPU mesh; the compiled path runs on real TPU.
+The scorer must reproduce the masked candidate costs of the separate stages
+(rollout + cost + corridor + obstacle collision, +inf where infeasible or
+colliding), its statistics row and the fleet form.
 """
 
 import numpy as np
@@ -11,12 +11,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.ops import collision as collision_ops
-from commonroad_rp_tpu.ops import cost as cost_ops
-from commonroad_rp_tpu.ops import frenet as frenet_ops
-from commonroad_rp_tpu.ops import grid as grid_ops
-from commonroad_rp_tpu.ops import kinematics as kin_ops
-from commonroad_rp_tpu.ops import pallas_cycle
+from commonroad_rp_jax.ops import collision as collision_ops
+from commonroad_rp_jax.ops import cost as cost_ops
+from commonroad_rp_jax.ops import frenet as frenet_ops
+from commonroad_rp_jax.ops import grid as grid_ops
+from commonroad_rp_jax.ops import kinematics as kin_ops
+from commonroad_rp_jax.ops import cycle as cycle_ops
 
 
 def _setup(level=1, v0=15.0, low_vel=False, with_obstacle=True):
@@ -29,7 +29,7 @@ def _setup(level=1, v0=15.0, low_vel=False, with_obstacle=True):
     corridor = collision_ops.CorridorArrays(
         d_lo=jnp.full(P, -4.0, dtype), d_hi=jnp.full(P, 4.0, dtype))
 
-    from commonroad_rp_tpu.utils.config import VehicleConfiguration
+    from commonroad_rp_jax.utils.config import VehicleConfiguration
     vc = VehicleConfiguration()
     veh = kin_ops.VehicleArrays(*[jnp.asarray(x, dtype) for x in [
         vc.wheelbase, vc.wb_rear_axle, vc.a_max, vc.v_switch,
@@ -82,14 +82,28 @@ def _xla_masked_costs(cfg):
     return np.where(np.asarray(ok), np.asarray(costs), np.inf)
 
 
+def _cost_params(desired_v, w_a=5.0, desired_s=0.0):
+    return cycle_ops.CostParams(
+        w_a=jnp.float32(w_a), desired_d=jnp.float32(0.0),
+        desired_speed=jnp.asarray(desired_v, jnp.float32),
+        desired_s=jnp.float32(desired_s))
+
+
+def _score(cfg, cl, ca, tl, goal_valid, cost_params, cost_structure,
+           ref_s_last=None):
+    return cycle_ops.score_candidates(
+        cl, ca, tl, goal_valid, cfg["ref"], cfg["veh"], cfg["obstacles"],
+        cfg["corridor"], cfg["x0_theta"], cost_params,
+        jnp.asarray(cfg["low_vel"]), ref_s_last, dt=cfg["dt"],
+        n_steps=cfg["n_steps"], cost_structure=cost_structure,
+        constraint_flags=(True,) * 5)
+
+
 def _pallas_masked_costs(cfg):
-    packed = pallas_cycle.pack_ref_tables(cfg["ref"], cfg["corridor"])
-    masked, kin, reasons = pallas_cycle.score_candidates_pallas(
-        cfg["cl"], cfg["ca"], cfg["tl"],
-        jnp.ones(cfg["cl"].shape[0], dtype=bool), packed, cfg["obstacles"],
-        cfg["veh"], cfg["x0_theta"], cfg["dt"], cfg["low_vel"],
-        cfg["desired_v"], jnp.float32(0.0), jnp.float32(5.0),
-        n_steps=cfg["n_steps"], interpret=True)
+    masked, kin, _ = _score(cfg, cfg["cl"], cfg["ca"], cfg["tl"],
+                            jnp.ones(cfg["cl"].shape[0], dtype=bool),
+                            _cost_params(cfg["desired_v"]),
+                            ("default", True, False))
     return np.asarray(masked), np.asarray(kin)
 
 
@@ -146,13 +160,10 @@ def test_pallas_scoring_stopping_mode():
     want = np.where(np.asarray(rollout.feasible & goal_valid),
                     np.asarray(want_costs), np.inf)
 
-    packed = pallas_cycle.pack_ref_tables(cfg["ref"], cfg["corridor"])
-    got = np.asarray(pallas_cycle.score_candidates_pallas(
-        cl, ca, tl, goal_valid, packed, cfg["obstacles"], cfg["veh"],
-        cfg["x0_theta"], cfg["dt"], jnp.asarray(False), jnp.float32(0.0),
-        jnp.float32(0.0), jnp.float32(1.0),
-        pallas_cycle.true_path_length(cfg["ref"]), jnp.float32(stop_s),
-        n_steps=cfg["n_steps"], interpret=True)[0])
+    got = np.asarray(_score(
+        cfg, cl, ca, tl, goal_valid,
+        _cost_params(0.0, w_a=1.0, desired_s=stop_s),
+        ("default", True, True))[0])
 
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
     finite = np.isfinite(want)
@@ -161,9 +172,10 @@ def test_pallas_scoring_stopping_mode():
     assert int(np.argmin(got)) == int(np.argmin(want))
 
 def test_fleet_scoring_matches_per_problem():
-    """score_fleet_pallas (grid over problems x K-tiles) must reproduce
-    per-problem score_candidates_pallas for a heterogeneous fleet: different
-    reference paths, obstacles, speeds, and a low-velocity member."""
+    """score_fleet (the scorer vmapped over problems) must reproduce
+    per-problem score_candidates for a heterogeneous fleet: different
+    reference paths (sentinel-padded to a common length), obstacles,
+    speeds, and a low-velocity member."""
     fleet_cfgs = [
         _setup(v0=15.0, low_vel=False, with_obstacle=True),
         _setup(v0=2.5, low_vel=True, with_obstacle=True),
@@ -183,134 +195,67 @@ def test_fleet_scoring_matches_per_problem():
     n_steps = fleet_cfgs[0]["n_steps"]
     T = n_steps + 1
     K = fleet_cfgs[0]["cl"].shape[0]
+    P = max(c["ref"].s.shape[0] for c in fleet_cfgs)
 
-    packed = [pallas_cycle.pack_ref_tables(c["ref"], c["corridor"])
-              for c in fleet_cfgs]
-    P = max(p.shape[0] for p in packed)
-    padded_tables, want = [], []
-    for c, p in zip(fleet_cfgs, packed):
-        if p.shape[0] < P:
-            n = P - p.shape[0]
-            rows = jnp.tile(p[-1:], (n, 1))
-            rows = rows.at[:, 0].add(
-                1e7 * jnp.arange(1, n + 1, dtype=jnp.float32))
-            p = jnp.concatenate([p, rows], axis=0)
-        padded_tables.append(p)
-        want.append(np.stack([np.asarray(row)
-                              for row in pallas_cycle.score_candidates_pallas(
-            c["cl"], c["ca"], c["tl"], jnp.ones(K, dtype=bool), p,
-            c["obstacles"], c["veh"], c["x0_theta"], c["dt"], c["low_vel"],
-            c["desired_v"], jnp.float32(0.0), jnp.float32(5.0),
-            pallas_cycle.true_path_length(c["ref"]),
-            n_steps=n_steps, interpret=True)]))  # [2, K]
+    def pad_ref(ref):
+        n = P - ref.s.shape[0]
+        rep = lambda a: jnp.concatenate([a, jnp.repeat(a[-1:], n, axis=0)])
+        out = jax.tree.map(rep, ref)
+        return out._replace(s=jnp.concatenate(
+            [ref.s, ref.s[-1] + 1e6 * jnp.arange(1, n + 1, dtype=jnp.float32)]))
+
+    def pad_band(band):
+        return jnp.concatenate([band, jnp.full(P - band.shape[0], 1e4,
+                                               jnp.float32)])
+
+    want = [np.stack([np.asarray(row) for row in _score(
+        c, c["cl"], c["ca"], c["tl"], jnp.ones(K, dtype=bool),
+        _cost_params(c["desired_v"]), ("default", True, False))])
+        for c in fleet_cfgs]                                   # [3, K] each
 
     M = max(c["obstacles"].pose.shape[0] for c in fleet_cfgs)
     obs_pose = np.zeros((F, M, T, 3), np.float32)
-    obs_ext = np.zeros((F, M, 2), np.float32)
-    obs_valid = np.zeros((F, M, T), np.float32)
+    obs_ext = np.ones((F, M, 2), np.float32)
+    obs_valid = np.zeros((F, M, T), bool)
     for f, c in enumerate(fleet_cfgs):
         m = c["obstacles"].pose.shape[0]
         if m:
             obs_pose[f, :m] = np.asarray(c["obstacles"].pose)
             obs_ext[f, :m] = np.asarray(c["obstacles"].half_ext)
             obs_valid[f, :m] = np.asarray(c["obstacles"].valid)
+    stack = lambda trees: jax.tree.map(lambda *a: jnp.stack(a), *trees)
 
-    veh_stack = jnp.stack([pallas_cycle.pack_veh_stack(
-        jax.tree.map(lambda x: x[None], c["veh"]))[0] for c in fleet_cfgs])
-
-    got = np.stack([np.asarray(row)
-                    for row in pallas_cycle.score_fleet_pallas(
+    got = np.stack([np.asarray(row) for row in cycle_ops.score_fleet(
         jnp.stack([c["cl"] for c in fleet_cfgs]),
         jnp.stack([c["ca"] for c in fleet_cfgs]),
         jnp.stack([c["tl"] for c in fleet_cfgs]),
         jnp.ones((F, K), dtype=bool),
-        jnp.stack(padded_tables),
-        jnp.asarray(obs_pose), jnp.asarray(obs_ext), jnp.asarray(obs_valid),
-        veh_stack,
+        stack([pad_ref(c["ref"]) for c in fleet_cfgs]),
+        stack([c["veh"] for c in fleet_cfgs]),
+        collision_ops.ObstacleArrays(pose=jnp.asarray(obs_pose),
+                                     half_ext=jnp.asarray(obs_ext),
+                                     valid=jnp.asarray(obs_valid)),
+        collision_ops.CorridorArrays(
+            d_lo=jnp.stack([-pad_band(-c["corridor"].d_lo)
+                            for c in fleet_cfgs]),
+            d_hi=jnp.stack([pad_band(c["corridor"].d_hi)
+                            for c in fleet_cfgs])),
         jnp.stack([c["x0_theta"] for c in fleet_cfgs]),
-        fleet_cfgs[0]["dt"],
-        jnp.asarray([float(c["low_vel"]) for c in fleet_cfgs], jnp.float32),
-        jnp.stack([c["desired_v"] for c in fleet_cfgs]),
-        jnp.zeros(F, jnp.float32), jnp.full(F, 5.0, jnp.float32),
-        jnp.stack([pallas_cycle.true_path_length(c["ref"])
-                   for c in fleet_cfgs]),
-        n_steps=n_steps, interpret=True)], axis=1)  # [F, 2, K]
+        stack([_cost_params(c["desired_v"]) for c in fleet_cfgs]),
+        jnp.asarray([c["low_vel"] for c in fleet_cfgs]),
+        jnp.stack([c["ref"].s[-1] for c in fleet_cfgs]),
+        dt=fleet_cfgs[0]["dt"], n_steps=n_steps,
+        cost_structure=("default", True, False),
+        constraint_flags=(True,) * 5)], axis=1)               # [F, 3, K]
 
     for f in range(F):
         np.testing.assert_array_equal(np.isfinite(got[f]),
                                       np.isfinite(want[f]),
                                       err_msg=f"problem {f} feasibility")
-        fin = np.isfinite(want[f])
-        assert fin.sum() > 0
-        np.testing.assert_allclose(got[f][fin], want[f][fin],
+        np.testing.assert_array_equal(got[f][2], want[f][2],
+                                      err_msg=f"problem {f} reasons")
+        fin = np.isfinite(want[f][:2])
+        assert fin[0].sum() > 0
+        np.testing.assert_allclose(got[f][:2][fin], want[f][:2][fin],
                                    rtol=1e-6, atol=1e-6,
                                    err_msg=f"problem {f} costs")
-
-
-def test_windowed_gathers_match_full_table(monkeypatch):
-    """The dynamic table window (_WINDOW_ROWS slice around the candidates'
-    arclength span) must be BIT-IDENTICAL to the full-table gathers — the
-    deep-start setup (x0_s = 40 on a 400-row path) makes the window start
-    past row 0, which also exercises the inactive-step query clamp
-    (_S_TABLE_S0): a zero query below the window would gather all-zero rows
-    and NaN-poison short candidates' take_last sums."""
-    cfg = _setup(level=2)
-    packed = pallas_cycle.pack_ref_tables(cfg["ref"], cfg["corridor"])
-    assert packed.shape[0] > pallas_cycle._WINDOW_ROWS  # window path active
-
-    def run():
-        masked, kin, reasons = pallas_cycle.score_candidates_pallas(
-            cfg["cl"], cfg["ca"], cfg["tl"],
-            jnp.ones(cfg["cl"].shape[0], dtype=bool), packed,
-            cfg["obstacles"], cfg["veh"], cfg["x0_theta"], cfg["dt"],
-            cfg["low_vel"], cfg["desired_v"], jnp.float32(0.0),
-            jnp.float32(5.0), n_steps=cfg["n_steps"], interpret=True)
-        return [np.asarray(x) for x in (masked, kin, reasons)]
-
-    windowed = run()
-    monkeypatch.setattr(pallas_cycle, "_WINDOW_ROWS", 10 ** 9)  # force full
-    full = run()
-    for name, a, b in zip(("masked", "kin", "reason"), windowed, full):
-        assert np.array_equal(a, b, equal_nan=True), name
-    # short candidates exist and are finitely scored (the NaN regression)
-    assert (np.asarray(cfg["tl"]) < cfg["n_steps"] + 1).any()
-    assert np.isfinite(windowed[0]).any()
-    assert not np.isnan(windowed[0]).any()
-
-
-def test_caller_span_matches_dense_prelude():
-    """Caller-supplied window bounds (grid.candidate_lon_span lattice) must
-    reproduce the dense [K, T] prelude's scoring bitwise — deep start so the
-    window path is active, incl. short candidates (enlarge extension)."""
-    cfg = _setup(level=2)
-    packed = pallas_cycle.pack_ref_tables(cfg["ref"], cfg["corridor"])
-    assert packed.shape[0] > pallas_cycle._WINDOW_ROWS
-
-    static_grid = grid_ops.make_static_grid(2, 0.4, cfg["n_steps"] * cfg["dt"],
-                                            cfg["dt"], -3.0, 3.0, 4)
-    x0_lon = jnp.asarray([40.0, 15.0, 0.2], jnp.float32)
-    span = grid_ops.candidate_lon_span(
-        x0_lon, jnp.asarray(11.0, jnp.float32), jnp.asarray(19.0, jnp.float32),
-        static_grid, cfg["dt"], cfg["n_steps"])
-
-    def run(span_arg):
-        masked, kin, reasons = pallas_cycle.score_candidates_pallas(
-            cfg["cl"], cfg["ca"], cfg["tl"],
-            jnp.ones(cfg["cl"].shape[0], dtype=bool), packed,
-            cfg["obstacles"], cfg["veh"], cfg["x0_theta"], cfg["dt"],
-            cfg["low_vel"], cfg["desired_v"], jnp.float32(0.0),
-            jnp.float32(5.0), span=span_arg, n_steps=cfg["n_steps"],
-            interpret=True)
-        return [np.asarray(x) for x in (masked, kin, reasons)]
-
-    with_span = run(span)
-    dense = run(None)
-    for name, a, b in zip(("masked", "kin", "reason"), with_span, dense):
-        assert np.array_equal(a, b, equal_nan=True), name
-    assert np.isfinite(with_span[0]).any()
-
-    # a hopelessly tight span must fall back to the full table, not corrupt
-    bogus = (jnp.float32(-1e5), jnp.float32(1e5))
-    fallback = run(bogus)
-    for name, a, b in zip(("masked", "kin", "reason"), fallback, dense):
-        assert np.array_equal(a, b, equal_nan=True), name

@@ -1,4 +1,4 @@
-"""Replanning scan on the Pallas scorer (interpret mode on CPU) vs the XLA
+"""Replanning scans on the fused scorer vs the dense XLA
 fleet path: the same problem must progress equivalently."""
 
 import numpy as np
@@ -7,14 +7,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.ops import grid as grid_ops
-from commonroad_rp_tpu.ops import kinematics as kin_ops
-from commonroad_rp_tpu.parallel import fleet as fleet_ops
-from commonroad_rp_tpu.parallel import pallas_fleet
-from commonroad_rp_tpu.parallel.mesh import make_fleet_mesh
-from commonroad_rp_tpu.utils.config import VehicleConfiguration
-from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.ops import grid as grid_ops
+from commonroad_rp_jax.ops import kinematics as kin_ops
+from commonroad_rp_jax.parallel import fleet as fleet_ops
+from commonroad_rp_jax.parallel import pallas_fleet
+from commonroad_rp_jax.parallel.mesh import make_fleet_mesh
+from commonroad_rp_jax.utils.config import VehicleConfiguration
+from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 
 def test_pallas_replanning_scan_matches_fleet(repo_root):
@@ -36,13 +36,12 @@ def test_pallas_replanning_scan_matches_fleet(repo_root):
                                             -3.0, 3.0, 4)
     n_cycles = 6
 
-    # pallas-scored scan (interpret mode)
+    # fused-scorer scan
     run_p = pallas_fleet.make_pallas_replanning_scan(
         problem["ref_tables"], problem["corridor"], problem["obstacles"],
         veh, static_grid, dt, n_steps, replan_offset=3,
         low_vel_threshold=4.0, horizon=n_steps * dt,
-        desired_speed=float(problem["desired_speed"]), n_cycles=n_cycles,
-        interpret=True)
+        desired_speed=float(problem["desired_speed"]), n_cycles=n_cycles)
     carry_p = pallas_fleet.PallasCycleCarry(
         x0_lon=jnp.asarray(problem["x0_lon"], dtype),
         x0_lat=jnp.asarray(problem["x0_lat"], dtype),
@@ -99,8 +98,7 @@ def test_pallas_fleet_scan_matches_xla_fleet(repo_root):
 
     run_p = pallas_fleet.make_pallas_fleet_scan(
         scene, static_grid, dt, n_steps, replan_offset=3,
-        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=n_cycles,
-        interpret=True)
+        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=n_cycles)
     final_p, metrics_p = run_p(carry)
 
     run_x = fleet_ops.make_fleet_rollout(
@@ -133,7 +131,7 @@ def test_pallas_fleet_scan_dead_member_freezes(repo_root):
         dtype=dtype)
     bad = dict(good)
     import dataclasses
-    from commonroad_rp_tpu.ops.collision import CorridorArrays
+    from commonroad_rp_jax.ops.collision import CorridorArrays
     # collapse the drivable band to an impossible sliver
     bad["corridor"] = CorridorArrays(
         d_lo=jnp.full_like(good["corridor"].d_lo, 0.001),
@@ -145,8 +143,7 @@ def test_pallas_fleet_scan_dead_member_freezes(repo_root):
                                                dtype=dtype)
     run = pallas_fleet.make_pallas_fleet_scan(
         scene, static_grid, dt, n_steps, replan_offset=3,
-        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=3,
-        interpret=True)
+        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=3)
     final, metrics = run(carry)
 
     found = np.asarray(metrics[0])                   # [cycles, F]
@@ -197,15 +194,14 @@ def test_pallas_fleet_scan_sharded_over_mesh(repo_root):
 
     run_local = pallas_fleet.make_pallas_fleet_scan(
         scene, static_grid, dt, n_steps, replan_offset=3,
-        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=n_cycles,
-        interpret=True)
+        low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=n_cycles)
     final_l, metrics_l = run_local(carry)
 
     mesh = make_fleet_mesh(8)
     run_sharded = pallas_fleet.make_pallas_fleet_scan(
         scene, static_grid, dt, n_steps, replan_offset=3,
         low_vel_threshold=4.0, horizon=n_steps * dt, n_cycles=n_cycles,
-        interpret=True, mesh=mesh)
+        mesh=mesh)
     final_s, metrics_s = run_sharded(carry)
 
     # f32: per-shard launch shapes regroup a few reductions -> ~3e-6 noise
@@ -250,7 +246,7 @@ def test_fleet_standstill_fallback(repo_root):
     n_cycles = 4
     run = pallas_fleet.make_pallas_fleet_scan(
         scene, grid, dt, n_steps, replan_offset=3, low_vel_threshold=4.0,
-        horizon=n_steps * dt, n_cycles=n_cycles, interpret=True)
+        horizon=n_steps * dt, n_cycles=n_cycles)
     final, metrics = run(carry)
 
     alive = np.asarray(metrics[0])                     # [C, F]
@@ -286,8 +282,7 @@ def test_fleet_stopping_mode(repo_root):
     n_cycles = 8
     run = pallas_fleet.make_pallas_fleet_scan(
         scene, grid, dt, n_steps, replan_offset=3, low_vel_threshold=4.0,
-        horizon=n_steps * dt, n_cycles=n_cycles, interpret=True,
-        longitudinal_mode="stopping", desired_s=desired_s,
+        horizon=n_steps * dt, n_cycles=n_cycles, longitudinal_mode="stopping", desired_s=desired_s,
         s_window=s_window, w_a=1.0)
     final, metrics = run(carry)
 
@@ -305,7 +300,7 @@ def test_pallas_fleet_mid_scan_resume(repo_root, tmp_path):
     """6-cycle pallas fleet scan == 3 cycles + checkpoint roundtrip +
     3 more cycles (bitwise carries, stacked metrics match) — the same
     resume guarantee the XLA path pins, on the production scorer."""
-    from commonroad_rp_tpu.utils.checkpoint import (load_fleet_carry,
+    from commonroad_rp_jax.utils.checkpoint import (load_fleet_carry,
                                                     save_fleet_carry)
 
     n_steps, dt = 20, 0.1
@@ -317,7 +312,7 @@ def test_pallas_fleet_mid_scan_resume(repo_root, tmp_path):
     def runner(n_cycles):
         return pallas_fleet.make_pallas_fleet_scan(
             scene, grid, dt, n_steps, replan_offset=3, low_vel_threshold=4.0,
-            horizon=n_steps * dt, n_cycles=n_cycles, interpret=True)
+            horizon=n_steps * dt, n_cycles=n_cycles)
 
     final6, metrics6 = runner(6)(carry)
     run3 = runner(3)

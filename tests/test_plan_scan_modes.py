@@ -15,9 +15,9 @@ import logging
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 

@@ -10,9 +10,9 @@ import logging
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 
@@ -117,7 +117,7 @@ def test_tjunction_reaches_goal_xla(tjunction_planner):
 def test_tjunction_yields_to_traffic(tjunction_planner):
     """The recorded run must be collision-free against all 10 dynamic
     obstacles and stay on the road (exact per-step solution check)."""
-    from commonroad_rp_tpu.utils.evaluation import (
+    from commonroad_rp_jax.utils.evaluation import (
         create_full_solution_trajectory, solution_collision_report)
 
     config = tjunction_planner.config
@@ -156,7 +156,7 @@ def test_valid_solution_over(over_planner):
     """The recorded ZAM_Over run passes the full validity check, including
     the ego-obstacle collision and road-boundary stages (reference:
     utility/evaluation.py:71 via commonroad-dc's solution checker)."""
-    from commonroad_rp_tpu.utils.evaluation import (
+    from commonroad_rp_jax.utils.evaluation import (
         create_full_solution_trajectory, create_planning_problem_solution,
         valid_solution)
 
@@ -176,9 +176,9 @@ def test_valid_solution_detects_collision(over_planner):
     """A deliberately colliding solution (driving straight through the
     parked obstacle at (59.9, 0.48)) must FAIL validation with the
     colliding time steps reported — round 1 validated such a solution."""
-    from commonroad_rp_tpu.models.state import ReactivePlannerState
-    from commonroad_rp_tpu.models.trajectories import Trajectory
-    from commonroad_rp_tpu.utils.evaluation import (
+    from commonroad_rp_jax.models.state import ReactivePlannerState
+    from commonroad_rp_jax.models.trajectories import Trajectory
+    from commonroad_rp_jax.utils.evaluation import (
         create_planning_problem_solution, valid_solution)
 
     config = over_planner.config
@@ -201,7 +201,7 @@ def test_valid_solution_detects_collision(over_planner):
 
 
 def test_route_planner_all_scenarios(repo_root):
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
     for name in ["ZAM_Over-1_1", "DEU_Test-1_1_T-1", "ZAM_Tjunction-1_42_T-1",
                  "ZAM-Ramp-1_1-T-1"]:
         scenario, pp, _ = load_scenario_and_planning_problem(

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.ops import polynomial as poly
+from commonroad_rp_jax.ops import polynomial as poly
 
 
 def _quintic_solve_oracle(x0, xd, T):
@@ -129,7 +129,7 @@ def test_traj_length_steps_replicates_numpy_arange():
     (reactive_planner.py:733), so any epsilon guard diverges."""
     import numpy as np
 
-    from commonroad_rp_tpu.models.sampling import traj_length_steps
+    from commonroad_rp_jax.models.sampling import traj_length_steps
 
     for dt in (0.05, 0.1, 0.2, 0.25, 0.3, 0.02, 0.04):
         taus = [k * dt * 0.5 + 0.13 for k in range(1, 60)] + \

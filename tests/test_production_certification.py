@@ -1,4 +1,4 @@
-"""Physics-oracle certification of the PRODUCTION paths (VERDICT r4 item 3).
+"""Physics-oracle certification of the PRODUCTION paths.
 
 The reference's strongest correctness signal is the evaluation pipeline —
 input reconstruction + KS forward simulation + ``valid_solution``
@@ -22,12 +22,12 @@ import logging
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.evaluation import (
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.evaluation import (
     create_full_solution_trajectory, create_planning_problem_solution,
     reconstruct_inputs, reconstruct_states, valid_solution)
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from commonroad_rp_tpu.baseline import oracle
-from commonroad_rp_tpu.ops import kinematics as kin_ops
-from commonroad_rp_tpu.ops.polynomial import quartic_coeffs, quintic_coeffs
-from commonroad_rp_tpu.utils.coordinate_system import CoordinateSystem
+from commonroad_rp_jax.baseline import oracle
+from commonroad_rp_jax.ops import kinematics as kin_ops
+from commonroad_rp_jax.ops.polynomial import quartic_coeffs, quintic_coeffs
+from commonroad_rp_jax.utils.coordinate_system import CoordinateSystem
 
 
 def _arc_cosys(radius=6.0):

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from commonroad_rp_tpu.ops import collision as co
-from commonroad_rp_tpu.utils.scenario import read_scenario_xml
+from commonroad_rp_jax.ops import collision as co
+from commonroad_rp_jax.utils.scenario import read_scenario_xml
 
 
 def _write_scenario(tmp_path, body: str) -> str:
@@ -114,7 +114,7 @@ def test_goal_shape_group(tmp_path):
     goal = list(pp_set.planning_problem_dict.values())[0].goal
     assert len(goal.state_list[0].position_shapes) == 2
 
-    from commonroad_rp_tpu.models.state import TraceState
+    from commonroad_rp_jax.models.state import TraceState
     in_second = TraceState(time_step=10, position=np.array([90.0, 0.0]),
                            velocity=5.0)
     assert goal.is_reached(in_second)
@@ -169,7 +169,7 @@ def test_reference_yaml_configs_load_verbatim():
     (drop-in config compatibility)."""
     import pathlib
 
-    from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
+    from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
 
     ref_dir = pathlib.Path("/root/reference/configurations")
     if not ref_dir.exists():
@@ -188,7 +188,7 @@ def test_scenario_writer_roundtrip(tmp_path, name):
     """read -> write -> read preserves the scene and planning problem."""
     import pathlib
 
-    from commonroad_rp_tpu.utils.scenario_writer import write_scenario_xml
+    from commonroad_rp_jax.utils.scenario_writer import write_scenario_xml
 
     src = pathlib.Path(__file__).parent.parent / "example_scenarios" / f"{name}.xml"
     scenario, pps = read_scenario_xml(str(src))

@@ -7,7 +7,7 @@ quotes different dynamic-obstacle counts; the XML files are ground truth).
 import numpy as np
 import pytest
 
-from commonroad_rp_tpu.utils.scenario import Interval, read_scenario_xml
+from commonroad_rp_jax.utils.scenario import Interval, read_scenario_xml
 
 
 CENSUS = {
@@ -76,7 +76,7 @@ def test_goal_lanelet_reached(scenario_dir):
     pp = list(pp_set.planning_problem_dict.values())[0]
     goal = pp.goal
     lanelet = scenario.lanelet_network.find_lanelet_by_id(goal.state_list[0].position_lanelets[0])
-    from commonroad_rp_tpu.models.state import TraceState
+    from commonroad_rp_jax.models.state import TraceState
     mid = lanelet.center_vertices[len(lanelet.center_vertices) // 2]
     inside = TraceState(time_step=37, position=mid, velocity=5.0, orientation=0.0)
     assert goal.is_reached(inside)

@@ -8,10 +8,10 @@ import pytest
 
 matplotlib = pytest.importorskip("matplotlib")
 
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.config import ReactivePlannerConfiguration
-from commonroad_rp_tpu.utils.route import RoutePlanner
-from commonroad_rp_tpu.utils import visualization as viz
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_jax.utils.route import RoutePlanner
+from commonroad_rp_jax.utils import visualization as viz
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
 
@@ -67,19 +67,19 @@ def test_final_trajectory_plot(planned, tmp_path):
 def test_bundle_labels(planned):
     _, planner, _ = planned
     bundle = planner.stored_trajectories
-    from commonroad_rp_tpu.models.trajectories import FeasibilityStatus
+    from commonroad_rp_jax.models.trajectories import FeasibilityStatus
     labels = set(bundle.labels)
     assert FeasibilityStatus.FEASIBLE in labels
     assert len(bundle.labels) == len(bundle.costs)
 
 
 def test_visualize_collision_checker_and_projection_domain(repo_root, tmp_path):
-    from commonroad_rp_tpu.utils.coordinate_system import CoordinateSystem
-    from commonroad_rp_tpu.utils.route import RoutePlanner
-    from commonroad_rp_tpu.utils.visualization import (
+    from commonroad_rp_jax.utils.coordinate_system import CoordinateSystem
+    from commonroad_rp_jax.utils.route import RoutePlanner
+    from commonroad_rp_jax.utils.visualization import (
         visualize_collision_checker, visualize_scenario_and_pp)
 
-    from commonroad_rp_tpu.utils.general import load_scenario_and_planning_problem
+    from commonroad_rp_jax.utils.general import load_scenario_and_planning_problem
     scenario, pp, _ = load_scenario_and_planning_problem(
         str(repo_root / "example_scenarios" / "ZAM_Tjunction-1_42_T-1.xml"))
     out = tmp_path / "cc.png"

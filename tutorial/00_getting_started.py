@@ -1,4 +1,4 @@
-"""Getting started with the TPU-native reactive planner.
+"""Getting started with the device-batched reactive planner.
 
 Runnable step-by-step walkthrough mirroring the reference tutorial notebook
 (reference: tutorial/00_getting_started.ipynb): load a scenario and config,
@@ -26,7 +26,7 @@ if args.platform:
 # %% 1. Load configuration and scenario ------------------------------------
 # The YAML configs use the same fields as the reference
 # (commonroad_rp/utility/config.py); scenario files are CommonRoad XML.
-from commonroad_rp_tpu import ReactivePlannerConfiguration
+from commonroad_rp_jax import ReactivePlannerConfiguration
 
 root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 os.chdir(root)
@@ -38,8 +38,8 @@ print(f"scenario: {config.scenario.scenario_id}, "
       f"dt={config.planning.dt}, horizon={config.planning.planning_horizon}s")
 
 # %% 2. Plan a route and build the planner ---------------------------------
-from commonroad_rp_tpu.models.planner import ReactivePlanner
-from commonroad_rp_tpu.utils.route import RoutePlanner
+from commonroad_rp_jax.models.planner import ReactivePlanner
+from commonroad_rp_jax.utils.route import RoutePlanner
 
 route = RoutePlanner(config.scenario,
                      config.planning_problem).plan_routes().retrieve_first_route()
@@ -89,14 +89,14 @@ print(f"goal reached: {planner.goal_reached()} after "
 # %% 5. Evaluate the solution ----------------------------------------------
 # KS-model input reconstruction per state transition + validity check
 # (the reference's physics-level oracle).
-from commonroad_rp_tpu.utils.evaluation import run_evaluation
+from commonroad_rp_jax.utils.evaluation import run_evaluation
 
 solution, feasibility = run_evaluation(config, planner.record_state_list,
                                        planner.record_input_list)
 print(f"feasible transitions: {sum(feasibility)}/{len(feasibility)}")
 
 # %% 6. Visualize -----------------------------------------------------------
-from commonroad_rp_tpu.utils.visualization import plot_final_trajectory
+from commonroad_rp_jax.utils.visualization import plot_final_trajectory
 
 os.makedirs("output", exist_ok=True)
 plot_final_trajectory(config.scenario, config.planning_problem,
@@ -105,12 +105,11 @@ plot_final_trajectory(config.scenario, config.planning_problem,
 print("plot saved to output/tutorial_final_trajectory.png")
 
 # %% 7. Fast scoring (optional) ---------------------------------------------
-# Score candidates with the fused VMEM Pallas kernel instead of the XLA
-# conformance program: same selected trajectory, exact rejection counters
-# and per-constraint reason dict. On a TPU backend this is already the
-# DEFAULT (kernel_dtype "auto" resolves to float32 + fast_scoring on); the
-# explicit settings below force it on CPU too, where the kernel executes
-# in (slower) interpret mode.
+# Score candidates with the fused scorer instead of the dense conformance
+# program: same selected trajectory, exact rejection counters and
+# per-constraint reason dict. On a GPU backend this is already the DEFAULT
+# (kernel_dtype "auto" resolves to float32 + fast_scoring on); the explicit
+# settings below force it on CPU too.
 config.debug.fast_scoring = True
 config.debug.kernel_dtype = "float32"
 fast_planner = ReactivePlanner(config)
@@ -123,8 +122,8 @@ print("fast path optimal cost:", fast_planner.optimal_cost)
 # ## 8. One-dispatch replanning: plan_scan
 # The whole cyclic replanning loop as a single device dispatch (grid
 # generation, fused level-escalated scoring, winner re-roll, and state
-# advance all on device). ~3.4 ms per planning cycle on a TPU; interpret
-# mode (slow) on CPU. Scope: velocity-keeping within the fast-path scope.
+# advance all on device). Scope: velocity-keeping within the fast-path
+# scope.
 scan_planner = ReactivePlanner(config)
 scan_planner.set_reference_path(route.reference_path)
 scan_planner.set_desired_velocity(current_speed=scan_planner.x_0.velocity)
