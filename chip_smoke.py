@@ -10,8 +10,9 @@ width, each checked against the repository's own references.
 
 Phases (one process, one card):
   (a) ZAM_Over-1_1 through run_planner's host loop with ``plan()`` under the
-      backend-resolved defaults: the fused scorer runs every cycle, the goal
-      is reached and every driven transition is KS-feasible.
+      backend-resolved defaults: the fused scorer (on the GPU the Triton
+      kernel) runs every cycle, the goal is reached and every driven
+      transition is KS-feasible.
   (b) the same scenario through ``plan_scan``: the same step count and the
       same positions as (a); then all four bundled scenarios reach their
       goals through ``plan_scan``.
@@ -122,7 +123,9 @@ def phase_a(ctx):
     import numpy as np
 
     import run_planner
+    from commonroad_rp_jax import backend
     from commonroad_rp_jax.ops import cycle as cycle_ops
+    from commonroad_rp_jax.ops import triton_scorer
     from commonroad_rp_jax.utils.evaluation import run_evaluation
 
     _say("== (a) ZAM_Over-1_1: run_planner host loop, plan() ==")
@@ -152,7 +155,11 @@ def phase_a(ctx):
     assert len(feasible) and all(feasible), \
         f"KS-infeasible transitions: {len(feasible) - sum(feasible)}"
     steps = len(planner.record_state_list) - 1
-    _say(f"[a] fused scorer chosen (kernel_dtype=float32, fast_scoring=True);"
+    score = backend.scorer(planner._scene_context()["obstacles"])
+    if not ctx["rehearse"]:
+        assert score is triton_scorer.score_candidates_triton, score
+    _say(f"[a] fused scorer chosen (kernel_dtype=float32, fast_scoring=True;"
+         f" plan() scores with {score.__module__}.{score.__name__});"
          f" goal reached in {steps} steps, {n_plans} plan() calls; "
          f"{len(feasible)}/{len(feasible)} transitions KS-feasible")
 

@@ -59,10 +59,9 @@ def fleet_scorer(obstacles, platform: Optional[str] = None):
 
 
 def scorer(obstacles, platform: Optional[str] = None):
-    """The single-problem scorer of the device-resident scans
+    """The single-problem scorer of ``plan()`` and the single-problem scans
     (``ops.cycle.score_candidates`` contract): :func:`fleet_scorer`'s
-    choice, as a fleet of one for the kernel.  Per-call ``plan()`` keeps the
-    XLA scorer (``ops.cycle._evaluate_levels_fast``)."""
+    choice, as a fleet of one for the kernel."""
     from commonroad_rp_jax.ops import cycle, triton_scorer
 
     if fleet_scorer(obstacles, platform) is cycle.score_fleet:

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
+from commonroad_rp_jax import backend
 from commonroad_rp_jax.ops import collision as collision_ops
 from commonroad_rp_jax.ops import cost as cost_ops
 from commonroad_rp_jax.ops import frenet as frenet_ops
@@ -364,9 +365,7 @@ def _evaluate_levels_fast(coeffs_lon: jnp.ndarray,
     coeffs_lon = jnp.asarray(coeffs_lon, dtype)
     coeffs_lat = jnp.asarray(coeffs_lat, dtype)
     x0_orientation = jnp.asarray(x0_orientation, dtype)
-    # the XLA scorer on every platform: one dispatch per plan() call, where
-    # the Triton kernel measured slower on the H100 (PERF.md, PR 1)
-    masked, kin, reasons = score_candidates(
+    masked, kin, reasons = backend.scorer(obstacles)(
         coeffs_lon, coeffs_lat, traj_len, goal_valid, ref, veh, obstacles,
         as_float32(corridor), x0_orientation, as_float32(cost_params),
         jnp.asarray(low_vel_mode), dt=dt, n_steps=n_steps,

@@ -41,6 +41,11 @@ _N_TAB = 12
  _HALF_W, _THETA0, _LOW_VEL, _W_A, _DES_D, _DES_V, _DES_S, _S_LAST) = range(15)
 _N_SCAL = 16
 _N_OBS = 8          # x, y, theta, half_len, half_wid, valid, radius, (pad)
+# candidates per program and warps per program: the fastest of (128, 4),
+# (64, 2), (256, 8), (128, 2), (64, 4) in the fleet scan at T=21 and T=61 on
+# an H100 (PERF.md, PR 1)
+_BLOCK_K = 128
+_NUM_WARPS = 4
 
 
 def supports(obstacles) -> bool:
@@ -74,10 +79,10 @@ def _round5(x):
 
 def _kernel(cl_ref, ca_ref, tl_ref, gv_ref, tab_ref, scal_ref, obs_ref,
             masked_ref, kin_ref, reason_ref, *, n_steps, dt, n_rows,
-            n_obs, flags, cost_structure, block_k):
+            n_obs, flags, cost_structure):
     f = pl.program_id(0)
     kb = pl.program_id(1)
-    cand = pl.ds(kb * block_k, block_k)
+    cand = pl.ds(kb * _BLOCK_K, _BLOCK_K)
     f32 = jnp.float32
     T = n_steps + 1
     P = n_rows
@@ -113,9 +118,9 @@ def _kernel(cl_ref, ca_ref, tl_ref, gv_ref, tab_ref, scal_ref, obs_ref,
             step //= 2
         return lo
 
-    zeros = jnp.zeros((block_k,), f32)
-    false = jnp.zeros((block_k,), jnp.bool_)
-    inf = jnp.full((block_k,), jnp.inf, f32)
+    zeros = jnp.zeros((_BLOCK_K,), f32)
+    false = jnp.zeros((_BLOCK_K,), jnp.bool_)
+    inf = jnp.full((_BLOCK_K,), jnp.inf, f32)
     s0 = c_lon[0]
 
     def step_fn(t, c):
@@ -200,7 +205,7 @@ def _kernel(cl_ref, ca_ref, tl_ref, gv_ref, tab_ref, scal_ref, obs_ref,
             v_safe = jnp.where(v > v_switch, v, 1.0)
             a_hi = jnp.where(v > v_switch, a_max * v_switch / v_safe, a_max)
             viol[4] = (a < -a_max) | (a > a_hi)
-        rank = jnp.full((block_k,), -1, jnp.int32)
+        rank = jnp.full((_BLOCK_K,), -1, jnp.int32)
         for r in range(4, -1, -1):
             rank = jnp.where(viol[r], r, rank)
         reason = jnp.where((c["reason"] < 0) & active & (rank >= 0), rank,
@@ -323,8 +328,8 @@ def _kernel(cl_ref, ca_ref, tl_ref, gv_ref, tab_ref, scal_ref, obs_ref,
                     acc_y=acc_y, cost=cost, hits=hits)
 
     init = dict(pre_acc=false, pre_vel=false,
-                held=jnp.full((block_k,), theta0, f32), theta_prev=zeros,
-                kappa_prev=zeros, reason=jnp.full((block_k,), -1, jnp.int32),
+                held=jnp.full((_BLOCK_K,), theta0, f32), theta_prev=zeros,
+                kappa_prev=zeros, reason=jnp.full((_BLOCK_K,), -1, jnp.int32),
                 dom_bad=false, a_l=zeros, v_l=zeros, th_l=zeros, x_l=zeros,
                 y_l=zeros, s_l=zeros, d_l=zeros, sd_l=zeros, dd_l=zeros,
                 tc_l=zeros, acc_x=zeros, acc_y=zeros, cost=zeros, hits=false)
@@ -346,19 +351,17 @@ def _kernel(cl_ref, ca_ref, tl_ref, gv_ref, tab_ref, scal_ref, obs_ref,
 @functools.partial(
     jax.jit,
     static_argnames=("dt", "n_steps", "cost_structure", "constraint_flags",
-                     "block_k", "num_warps", "interpret"))
+                     "interpret"))
 def score_fleet_triton(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
                        veh, obstacles, corridor, x0_orientation, cost_params,
                        low_vel_mode, ref_s_last, *, dt: float, n_steps: int,
                        cost_structure: tuple, constraint_flags: tuple,
-                       block_k: int = 128, num_warps: int = 4,
                        interpret: bool = False):
     """:func:`ops.cycle.score_fleet` as one Triton-route Pallas kernel.
 
     Same arguments (every leaf with a leading fleet axis F) and the same
     three [F, K] rows; obstacles must have no polygon group
-    (:func:`supports`).  ``block_k`` candidates per program, a power of 2.
-    ``interpret=True`` runs the kernel body on the CPU (tests).
+    (:func:`supports`).  ``interpret=True`` runs the kernel body on the CPU (tests).
     """
     if not supports(obstacles):
         raise ValueError("triton scorer: polygon obstacle groups are not "
@@ -366,7 +369,7 @@ def score_fleet_triton(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
     f32 = jnp.float32
     F, K = coeffs_lon.shape[:2]
     T = n_steps + 1
-    K_pad = pl.cdiv(K, block_k) * block_k
+    K_pad = pl.cdiv(K, _BLOCK_K) * _BLOCK_K
     pad = K_pad - K
     cl = jnp.pad(jnp.swapaxes(coeffs_lon.astype(f32), 1, 2),
                  ((0, 0), (0, 0), (0, pad)))
@@ -409,13 +412,13 @@ def score_fleet_triton(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
     kernel = functools.partial(
         _kernel, n_steps=n_steps, dt=dt, n_rows=P, n_obs=M,
         flags=tuple(bool(x) for x in constraint_flags),
-        cost_structure=cost_structure, block_k=block_k)
+        cost_structure=cost_structure)
     out_shape = (jax.ShapeDtypeStruct((F, K_pad), f32),
                  jax.ShapeDtypeStruct((F, K_pad), f32),
                  jax.ShapeDtypeStruct((F, K_pad), jnp.int32))
     masked, kin, reasons = pl.pallas_call(
-        kernel, out_shape=out_shape, grid=(F, K_pad // block_k),
-        compiler_params=plt.CompilerParams(num_warps=num_warps,
+        kernel, out_shape=out_shape, grid=(F, K_pad // _BLOCK_K),
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
                                            num_stages=1),
         backend="triton", interpret=interpret, name="fleet_scorer",
     )(cl, ca, tl, gv, tab, scal, obs)

@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from commonroad_rp_jax.backend import fleet_scorer, scorer
+from commonroad_rp_jax import backend
 from commonroad_rp_jax.ops import cycle as cycle_ops
 from commonroad_rp_jax.ops import frenet as frenet_ops
 from commonroad_rp_jax.ops import grid as grid_ops
@@ -93,7 +93,7 @@ def make_pallas_replanning_scan(ref: RefPathTables,
                                        half_ext=jnp.zeros((0, 2), dtype),
                                        valid=jnp.zeros((0, T), dtype=bool))
 
-        costs, _, _ = scorer(obstacles)(
+        costs, _, _ = backend.scorer(obstacles)(
             cl, ca, tl, jnp.ones(K, dtype=bool), ref, veh, obstacles,
             corridor, carry.orientation, cost_params, low_vel, dt=dt,
             n_steps=n_steps, cost_structure=("default", True, False),
@@ -247,7 +247,7 @@ def make_pallas_fleet_scan(scene, static_grid: grid_ops.StaticGrid,
             desired_speed=scene.desired_speed.astype(dtype),
             desired_s=jnp.zeros(F, dtype) if not stopping
             else jnp.asarray(desired_s, dtype))
-        costs, kin_costs, _ = fleet_scorer(obstacles)(
+        costs, kin_costs, _ = backend.fleet_scorer(obstacles)(
             cl, ca, tl, gv, scene.ref, scene.veh, obstacles, corridor,
             carry.orientation, cost_params, low_vel, ref_s_last, dt=dt,
             n_steps=n_steps, cost_structure=("default", True, stopping),
@@ -577,7 +577,7 @@ def make_facade_replanning_scan(ref: RefPathTables,
             w_a=jnp.asarray(w_a, dtype), desired_d=jnp.asarray(desired_d, dtype),
             desired_speed=ds,
             desired_s=jnp.asarray(desired_s if stopping else 0.0, dtype))
-        masked, kin, _ = scorer(obstacles)(
+        masked, kin, _ = backend.scorer(obstacles)(
             cl, ca, tl, gv, ref32, veh32, obstacles, corridor32,
             carry.orientation, cost_params, low_vel, dt=dt, n_steps=n_steps,
             cost_structure=("default", True, stopping),

@@ -1,5 +1,5 @@
-"""Platform choices (commonroad_rp_jax.backend) and the GPU smoke test's
-refusal to report a result anywhere but on a GPU."""
+"""Platform choices (commonroad_rp_jax.backend) and the refusal of the GPU
+smoke test and the benchmark to report a result anywhere but on a GPU."""
 
 import os
 import shutil
@@ -90,6 +90,18 @@ def test_chip_smoke_refuses_without_gpu(repo_root, tmp_path, alone):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_bench_refuses_without_gpu(repo_root, tmp_path):
+    """bench.py measures only on a GPU; the CPU runs only when asked for
+    by name (``--platform cpu``)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, str(repo_root / "bench.py")],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 1
+    assert "--platform cpu" in proc.stderr
+    assert proc.stdout == ""
 
 
 @pytest.fixture

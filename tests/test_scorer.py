@@ -159,3 +159,35 @@ def test_fleet_form_matches_single_on_padded_mixed_fleet(repo_root):
         fin = np.isfinite(w_masked)
         assert fin.any(), f"member {f}: nothing selectable"
         np.testing.assert_allclose(masked[fin], w_masked[fin], rtol=1e-6)
+
+
+def test_plan_scores_through_the_backend_choice(repo_root, monkeypatch):
+    """``plan()``'s fused escalation takes its scorer from ``backend.scorer``,
+    the one selection point it shares with the scans: with the Triton
+    kernel chosen (interpret mode here) it plans the XLA scorer's
+    trajectory."""
+    import functools
+
+    from commonroad_rp_jax import backend
+    from commonroad_rp_jax.ops import triton_scorer
+
+    def plan_once():
+        planner = _planner(repo_root, "ZAM_Over-1_1")
+        planner.config.debug.fast_scoring = True
+        cycle_ops._evaluate_levels_fast.clear_cache()
+        return planner.plan()[0]
+
+    want = plan_once()
+    chosen = []
+
+    def kernel(obstacles, platform=None):
+        chosen.append(obstacles)
+        return functools.partial(triton_scorer.score_candidates_triton,
+                                 interpret=True)
+
+    monkeypatch.setattr(backend, "scorer", kernel)
+    got = plan_once()
+    assert chosen, "plan() did not ask backend.scorer for its scorer"
+    np.testing.assert_allclose(
+        np.asarray([s.position for s in got.state_list]),
+        np.asarray([s.position for s in want.state_list]), atol=1e-4)

@@ -121,7 +121,7 @@ def test_triton_pads_candidate_axis_and_checks_scope(repo_root):
     with jax.enable_x64(False):
         full = triton_scorer.score_fleet_triton(*args, **static,
                                                 interpret=True)
-        part = triton_scorer.score_fleet_triton(*cut, **static, block_k=32,
+        part = triton_scorer.score_fleet_triton(*cut, **static,
                                                 interpret=True)
     for f_row, p_row in zip(full, part):
         assert p_row.shape == (4, 77)
